@@ -4,7 +4,7 @@ Mirrors Examples/MatrixMaps of the reference (main.py + the SWIG director
 RealOperation): double every lower-triangular element, drop the rest.
 Two idioms are shown — the callback Operation class (reference
 MatrixMapper.h:13-45 directors) and the vectorized fast path, which is how
-the map should be written on TPU (one fused XLA kernel over the triplet
+the map should be written for a device (one fused XLA kernel over the triplet
 arrays instead of a Python call per element).
 """
 import argparse

@@ -1,4 +1,4 @@
-"""ntpoly_tpu — TPU-native sparse matrix-function library.
+"""ntpoly_tpu — sparse matrix-function library for JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of NTPoly
 (github.com/william-dawson/NTPoly): functions of large sparse Hermitian

@@ -2,8 +2,9 @@
 
 The reference library (NTPoly) fixes NTREAL = C double and duplicates all code
 for real/complex (Source/Fortran/DataTypesModule.F90:10-22).  Here precision is
-a runtime choice: float32/complex64 on TPU (MXU-native), float64/complex128 on
-CPU when ``jax_enable_x64`` is active (used by the scipy-oracle test suite).
+a runtime choice: float32/complex64 by default (the GPU path), float64/
+complex128 when ``jax_enable_x64`` is active (used by the scipy-oracle test
+suite).
 """
 from __future__ import annotations
 
@@ -14,13 +15,15 @@ import jax.numpy as jnp
 # sorts after every real block-column index (dims < 2**30 blocks).
 EMPTY = 2**30
 
-# Default block (tile) size.  On TPU this should be 128 to map onto the MXU
-# systolic array; tests on CPU use small blocks (4/8) to exercise the sparse
+# Default block (tile) size: each block product is one bs x bs x bs GEMM of
+# a batch, so larger blocks run the products at a higher rate and pad
+# more.  Tests on CPU use small blocks (4/8) to exercise the sparse
 # machinery on tiny matrices (reference tests use dims 7-31).
 DEFAULT_BLOCK_SIZE = 128
 
-# Default row-chunk used by the dense-accumulator SpGEMM (memory/parallelism
-# trade-off: the accumulator is chunk * n_block_cols * bs * bs elements).
+# Default row-chunk of the chunked SpGEMM tiers (memory/parallelism
+# trade-off: the dense accumulator is chunk * n_block_cols * bs * bs
+# elements, the candidate tensor chunk * KA*KB * bs * bs).
 DEFAULT_ROW_CHUNK = 8
 
 
@@ -49,11 +52,11 @@ def is_complex(dtype) -> bool:
 # ----------------------------------------------------------------------------
 # complex support policy
 # ----------------------------------------------------------------------------
-# XLA:TPU has no native complex arithmetic on the production path; the
-# TPU-native representation is the 2x2 real embedding (core/cplx.py).  The
-# api layer routes complex data through the embedding automatically when
-# the backend lacks native complex.  Modes: 'auto' (embed iff backend is
-# not CPU), 'always' (tests exercise the embedded path on CPU), 'never'.
+# XLA on the CPU and on the GPU has native complex64/complex128.  The api
+# layer routes complex data through the 2x2 real embedding (core/cplx.py)
+# only when the backend lacks native complex.  Modes: 'auto' (embed iff
+# the backend lacks it), 'always' (tests exercise the embedded path on
+# CPU), 'never'.
 _embed_mode = "auto"
 
 
@@ -64,12 +67,12 @@ def set_complex_embedding(mode: str) -> None:
 
 
 def backend_supports_complex(grid=None) -> bool:
-    """Native complex arrays are only trustworthy on the CPU backend."""
+    """Native complex arithmetic: XLA's CPU and GPU backends."""
     if grid is not None:
         platform = grid.mesh.devices.flat[0].platform
     else:
         platform = jax.devices()[0].platform
-    return platform == "cpu"
+    return platform in ("cpu", "gpu")
 
 
 def should_embed_complex(grid=None) -> bool:

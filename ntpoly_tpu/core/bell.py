@@ -8,17 +8,18 @@ blocks; each block-row stores up to K blocks as
     blocks  : dtype[..., R, K, bs, bs]
 
 Invariants: non-EMPTY col ids of a row are ascending and unique, and an
-EMPTY slot's block is all-zero.  EMPTY slots usually pack last, but the
-pallas SpGEMM marks below-threshold slots EMPTY *in place* (holes), so no
+EMPTY slot's block is all-zero.  EMPTY slots usually pack last, but
+:func:`merge` marks below-threshold slots EMPTY *in place* (holes), so no
 consumer may assume a dense prefix — use :func:`used_slots`, not
 :func:`occupancy`, for capacity trims, and :func:`compact` to re-pack.
 
 This plays the role NTPoly's local CSR + memory-pool layer plays
 (reference: Source/Fortran/SMatrixModule.F90:15-31,
 Source/Fortran/MatrixMemoryPoolModule.F90:13-56) but is designed for XLA:
-static shapes (capacity K instead of dynamic nnz), batched bs x bs matmuls on
-the MXU, and truncation implemented as masking + compaction.  Leading batch
-dimensions (e.g. a column-panel axis) are supported by every slot-wise op.
+static shapes (capacity K instead of dynamic nnz), batched bs x bs matmuls
+(cuBLAS batched GEMMs on the GPU), and truncation implemented as masking +
+compaction.  Leading batch dimensions (e.g. a column-panel axis) are
+supported by every slot-wise op.
 
 All functions are pure and jit-safe.  Scalars (alpha, beta, threshold) may be
 traced; structural parameters (K, bs, chunk sizes) are static.
@@ -36,9 +37,9 @@ from ..config import EMPTY
 
 Array = jax.Array
 
-# TPU matmuls default to bf16 multiplication passes; NTPoly's convergence
-# tolerances (1e-6) need true f32 products, so every contraction in this
-# kernel layer requests full precision explicitly.
+# Every contraction in this layer runs at full precision: on the GPU,
+# HIGHEST keeps float32 products in true FP32 (no TF32 and no bf16
+# passes).  NTPoly's convergence tolerances (1e-6) need it.
 PRECISION = lax.Precision.HIGHEST
 
 
@@ -115,13 +116,11 @@ def merge(cols: Array, blocks: Array, k_out: int, threshold=0.0
 
     Accepts arbitrary slot order and duplicate col ids.  Sort- and
     gather-free: the output slot of each candidate is its count of
-    distinct smaller ids (pairwise comparisons, like
-    spgemm_pallas.structure_plan), and the dedup-sum + slot placement is
-    ONE one-hot contraction over the block tensor — the previous
-    argsort + compact pipeline made three full passes.  On overflow
-    (more than k_out distinct ids) the lowest col ids are kept, matching
-    the pallas kernel.  Below-threshold values flush to zero; slots whose
-    whole block flushes are EMPTY in place (holes, not re-packed).
+    distinct smaller ids (pairwise comparisons), and the dedup-sum + slot
+    placement is ONE one-hot contraction over the block tensor.  On
+    overflow (more than k_out distinct ids) the lowest col ids are kept.
+    Below-threshold values flush to zero; slots whose whole block flushes
+    are EMPTY in place (holes, not re-packed).
     """
     m = cols.shape[-1]
     valid = cols != EMPTY
@@ -140,6 +139,39 @@ def merge(cols: Array, blocks: Array, k_out: int, threshold=0.0
     nm = jnp.sum(jnp.abs(out), axis=(-1, -2))
     oc = jnp.where(nm > 0, oc, EMPTY)
     return oc, out
+
+
+def _candidate_ids(a_cols: Array, b_cols: Array) -> Array:
+    """[R, KA*KB] output block-col id of every candidate product of
+    A @ B (EMPTY for unused A slots / B slots)."""
+    R, KA = a_cols.shape
+    valid_a = a_cols != EMPTY
+    ks = jnp.where(valid_a, a_cols, 0)
+    ids = jnp.where(valid_a[:, :, None], b_cols[ks], EMPTY)   # [R, KA, KB]
+    return ids.reshape(R, KA * b_cols.shape[-1])
+
+
+def _first_occurrence(ids: Array) -> Array:
+    """first[..., m] — ids[m] is valid and has no duplicate at m' < m,
+    from an [..., M, M] pairwise comparison (M = KA*KB, small in the
+    threshold-sparse regime)."""
+    M = ids.shape[-1]
+    eq = ids[..., :, None] == ids[..., None, :]               # [., M, M]
+    earlier = (jnp.arange(M)[:, None] > jnp.arange(M)[None, :])
+    dup = jnp.any(eq & earlier, axis=-1)
+    return (ids != EMPTY) & ~dup
+
+
+def structural_fill(a_cols: Array, b_cols: Array) -> Array:
+    """Exact per-row structural fill-in of C = A @ B from col ids alone.
+
+    fill[r] = number of distinct output block-columns of row r (before any
+    threshold pruning) — the capacity a lossless multiply needs, which
+    sizes the output up front the way NTPoly grows its memory pool
+    (reference sparse_includes/GemmMatrix.f90:48-56).
+    """
+    ids = _candidate_ids(a_cols, b_cols)
+    return jnp.sum(_first_occurrence(ids).astype(jnp.int32), axis=-1)
 
 
 def union_fill(a_cols: Array, b_cols: Array) -> Array:
@@ -168,7 +200,7 @@ def used_slots(cols: Array) -> Array:
     """Highest occupied slot index + 1: [..., K] -> [...].
 
     Equals :func:`occupancy` when slots are packed (EMPTY last), but stays
-    correct for hole-bearing layouts (the pallas kernel marks flushed slots
+    correct for hole-bearing layouts (:func:`merge` marks flushed slots
     EMPTY in place) — capacity trims must use this, not occupancy."""
     k = cols.shape[-1]
     idx = jnp.where(cols != EMPTY, jnp.arange(1, k + 1, dtype=jnp.int32), 0)
@@ -226,13 +258,15 @@ def spgemm(a_cols: Array, a_blocks: Array, b_cols: Array, b_blocks: Array,
        output panel [col_offset, col_offset + nbc_out).
     Returns C as [R, k_out] block-ELL with global col ids.
 
-    TPU-first redesign of NTPoly's Gustavson SpGEMM with pooled dense
-    accumulator (reference
-    Source/Fortran/sparse_includes/MultiplyBlock.f90:8-36
+    Redesign of NTPoly's Gustavson SpGEMM with pooled dense accumulator
+    (reference Source/Fortran/sparse_includes/MultiplyBlock.f90:8-36
     + PruneList.f90): rows are processed in chunks, each chunk scattering
     bs x bs partial products into a dense (chunk, nbc_out) block accumulator
-    via one-hot contractions (MXU-friendly; no serialized scatters), then the
-    accumulator is thresholded and compacted back to block-ELL.
+    via one-hot contractions, then the accumulator is thresholded and
+    compacted back to block-ELL.  The accumulator holds
+    ``row_chunk * nbc_out * bs * bs`` elements and the one-hot scatter
+    costs FLOPs in proportion to ``nbc_out``, so this tier only suits
+    narrow panels (see ``parallel/algebra._pick_method``).
     """
     R, KA = a_cols.shape
     bs = a_blocks.shape[-1]
@@ -332,7 +366,7 @@ def spgemm_candidates(a_cols: Array, a_blocks: Array, b_cols: Array,
 
 def spgemm_dense(a_cols, a_blocks, b_cols, b_blocks, *, col_offset, nbc_out,
                  k_out, nbk, threshold=0.0, alpha=1.0):
-    """Dense fast path: densify both operands, one big MXU matmul, re-sparsify.
+    """Dense fast path: densify both operands, one big matmul, re-sparsify.
 
     Analogue of NTPoly's density-heuristic dense branch
     (reference Source/Fortran/sparse_includes/DenseBranch.f90).
@@ -454,11 +488,11 @@ def comp_sum(x: Array) -> Array:
     Pairwise reduction where every level's rounding error is captured
     exactly by a two-sum (Knuth) and carried in a parallel lo array:
     hi + lo carries the sum to ~n*eps^2 instead of f32's n*eps.  All
-    levels are full-width VPU passes (log2(n) of them, total traffic
-    ~4x one streaming pass) — no serial scan, so this prices at a few
-    extra HBM passes even at 10^8 elements.
+    levels are full-width elementwise passes (log2(n) of them, total
+    traffic ~4x one streaming pass) — no serial scan, so this prices at a
+    few extra memory passes even at 10^8 elements.
 
-    Purpose (VERDICT r4 weak #5 / next #7): f32 energy traces at the
+    Purpose: f32 energy traces at the
     2^20-row scale quantize at ~eps*|E| (~0.01 absolute), so convergence
     below that is uncertifiable no matter how the sum is ordered.  The
     (hi, lo) pair resolves the value to ~eps^2*|E|; the host combines

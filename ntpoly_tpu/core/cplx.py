@@ -1,8 +1,7 @@
-"""Complex matrices on real-only accelerators: the 2x2 real embedding.
+"""Complex matrices on real-only backends: the 2x2 real embedding.
 
-XLA:TPU has no native complex arithmetic on the production path, so the
-TPU-native representation of a complex matrix C = A + iB is the real
-matrix of twice the dimension
+On a backend without native complex arithmetic, a complex matrix
+C = A + iB is represented as the real matrix of twice the dimension
 
     E(C) = [[A, -B],
             [B,  A]]
@@ -80,8 +79,8 @@ def embed(m: PM.PSMatrix, real_dtype=None) -> PM.PSMatrix:
 
 def extract(me: PM.PSMatrix, complex_dtype=None) -> PM.PSMatrix:
     """Real embedding -> complex PSMatrix (dimension halves).  Only usable
-    on backends with native complex arrays (e.g. CPU); on TPU keep working
-    in the embedded form and extract triplets instead."""
+    on backends with native complex arrays (CPU, GPU); elsewhere keep
+    working in the embedded form and extract triplets instead."""
     r2, c2, v2 = PM.to_triplets(me)
     i, j, v, dim = extract_triplets(r2, c2, v2, me.dim)
     complex_dtype = complex_dtype or np.complex128

@@ -3,7 +3,7 @@
 The reference's runtime outside the math kernels is compiled
 Fortran/C++ (MPI-IO text parsing, triplet marshaling — reference
 Source/Fortran/PSMatrixModule.F90:351-570, Source/Wrapper/*).  The
-TPU-native analogue keeps JAX/XLA/Pallas on the compute path and uses a
+analogue here keeps JAX/XLA on the compute path and uses a
 small C++ shared library for the host-side hot loops: multithreaded
 MatrixMarket parse/format.  Built on demand with g++ (see build.py);
 every entry point has a pure-numpy fallback so the package works without
@@ -109,7 +109,7 @@ def fill_blocks(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
 
     Requires nb < 2^21: blockfill.cpp packs its sort key as
     ((bj/pnb)*nb + bi)*nb + bj, which overflows int64 beyond that —
-    enforced here (ADVICE r4), callers fall back to the numpy path."""
+    enforced here, callers fall back to the numpy path."""
     if _lib is None:
         raise RuntimeError("native library unavailable")
     if nb >= (1 << 21):

@@ -1,6 +1,6 @@
 // Native host runtime for ntpoly_tpu: fast MatrixMarket coordinate IO.
 //
-// TPU-native analogue of the reference's parallel-IO text path
+// Analogue of the reference's parallel-IO text path
 // (reference Source/Fortran/PSMatrixModule.F90:351-570: MPI_File_read_at_all
 // of per-rank byte ranges with line-boundary fix-up + per-line parse loop).
 // Under single-controller JAX the host owns IO, so the parallelism moves

@@ -3,11 +3,10 @@
 The reference scales across hosts with MPI: alltoallv triplet
 redistribution on fill (reference distributed_includes/
 FillMatrixFromTripletList.f90:25-46) and MPI-IO byte ranges on read
-(reference PSMatrixModule.F90:351-570).  The TPU-native equivalents here:
+(reference PSMatrixModule.F90:351-570).  The JAX equivalents here:
 
   * :func:`initialize` — `jax.distributed` bootstrap (one controller per
-    host; devices of all hosts form one global mesh, collectives ride
-    ICI/DCN).
+    host; devices of all hosts form one global mesh).
   * triplet exchange — padded `process_allgather` over the host network
     (every host ends with the union; the 'prepartitioned' fill mode skips
     the exchange entirely when each host already owns its panel's data,
@@ -32,9 +31,10 @@ __all__ = ["initialize", "process_count", "process_index",
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bootstrap the multi-process runtime (env-driven defaults: JAX reads
-    COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or the cloud TPU
-    metadata when arguments are omitted)."""
+    """Bootstrap the multi-process runtime.  Pass all three arguments
+    where no cluster environment describes the job (a plain GPU host):
+    ``coordinator_address='localhost:<port>'``, ``num_processes`` and
+    ``process_id``."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -98,7 +98,7 @@ _exchange_calls = iter(range(1 << 62))     # lockstep collective counter
 # bytes: a single monolithic set/get of a ~400 MB bucket (25.7M triplets
 # at the repo's own bench scale) can exceed gRPC message limits and
 # concentrates every payload in the coordinator's memory at once —
-# bounded chunks keep any single KV operation small (ADVICE r4 medium).
+# bounded chunks keep any single KV operation small.
 # Env-overridable so tests can force the multi-chunk path with tiny
 # payloads; must agree across processes.
 def _kv_chunk_bytes() -> int:
@@ -196,7 +196,7 @@ def _exchange_kv(rows, cols, vals, dest, nproc: int, client):
 
 
 def exchange_triplets(rows, cols, vals, dest):
-    """Route each (i, j, v) triplet to the process ``dest`` — the TPU-native
+    """Route each (i, j, v) triplet to the process ``dest`` — the
     alltoallv of the reference fill (reference distributed_includes/
     FillMatrixFromTripletList.f90:25-46).  The default transport is the
     exact-sized key-value-store exchange (:func:`_exchange_kv`); when the

@@ -1,10 +1,11 @@
 """Process grid: a 3-axis JAX device mesh (rows x cols x slices).
 
-TPU-native replacement for NTPoly's MPI 3D process grid
+JAX replacement for NTPoly's MPI 3D process grid
 (reference Source/Fortran/ProcessGridModule.F90:15-56,130-264).  Where the
 reference derives row/column/slice communicators by MPI_COMM_SPLIT, here the
-grid is a ``jax.sharding.Mesh`` whose named axes XLA uses to route
-collectives over ICI/DCN:
+grid is a ``jax.sharding.Mesh`` — a plain reshape of ``jax.devices()``,
+with no interconnect topology assumed — whose named axes XLA uses to route
+collectives (NCCL between GPUs):
 
     'rows'   — block-row panels of the matrix (reference row_comm)
     'cols'   — block-column panels (reference column_comm)

@@ -2,13 +2,13 @@
 
 PivotedCholeskyDecomposition (:30-221, aquilante2006fast): rank-k partial
 Cholesky with max-diagonal pivoting.  The reference hunts pivots with
-allreduce-maxloc over a distributed panel; the TPU-native design keeps the
+allreduce-maxloc over a distributed panel; this design keeps the
 matrix SPARSE and distributed throughout: the whole rank-k loop runs on
 device as one compiled ``lax.fori_loop`` whose per-step work is a single
 one-hot SpMV (column extraction via the distributed operator), a
 [dim, rank] dense panel update, and the diagonal downdate — O(dim * rank)
 memory, no N^2 materialization, so the factorization exists at the
-library's target dimension (VERDICT r4 missing #1).
+library's target dimension.
 
 ReduceDimension (:222-279): TRS4 with identity overlap -> rank-dim pivoted
 Cholesky of the density -> similarity transform into that subspace ->

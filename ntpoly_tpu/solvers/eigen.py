@@ -4,8 +4,8 @@
 The reference's only distributed eigensolver is "gather the whole matrix on
 every rank, run LAPACK, redistribute" (EigenSerial,
 reference eigenexa_includes/EigenSerial.f90:1-42) with an optional EigenExa
-bridge.  The TPU-native equivalent gathers to dense and runs
-``jnp.linalg.eigh`` — a blocked MXU factorization via XLA — then re-sparsifies
+bridge.  The equivalent here gathers to dense and runs
+``jnp.linalg.eigh`` — a blocked factorization via XLA — then re-sparsifies
 with the threshold.  ``dense_matrix_function`` (eigendecompose, map
 eigenvalues through f, reassemble) is the universal dense fallback used by
 every Dense* solver (reference EigenSolversModule.F90:88-150).
@@ -81,8 +81,8 @@ def eigen_decomposition_iterative(mat, nvals: int,
 
     The reference escapes its dense O(N^2) eigensolver only through the
     optional EigenExa bridge (reference EigenExaModule.F90:24-58); the
-    TPU-native escape is matrix-free LOBPCG on the distributed block-sparse
-    operator: per iteration one tall SpMM (``alg.spmm``, MXU batched
+    escape here is matrix-free LOBPCG on the distributed block-sparse
+    operator: per iteration one tall SpMM (``alg.spmm``, batched
     (bs, bs) x (bs, m) dots) plus small dense Rayleigh-Ritz problems.
     Memory is O(N * nvals) instead of O(N^2).
 
@@ -96,9 +96,9 @@ def eigen_decomposition_iterative(mat, nvals: int,
     if jnp.issubdtype(mat.dtype, jnp.complexfloating):
         # jax's lobpcg_standard is real-only — run it on the 2x2 real
         # embedding (every complex eigenvalue arrives with doubled
-        # multiplicity) and reconstruct the complex pairs (VERDICT r4
-        # missing #2; role of the reference's complex-native EigenExa
-        # bridge, EigenExaModule.F90:24-58)
+        # multiplicity) and reconstruct the complex pairs (role of the
+        # reference's complex-native EigenExa bridge,
+        # EigenExaModule.F90:24-58)
         from ..core import cplx
         me = cplx.embed(mat)
         w2, v2 = eigen_decomposition_iterative(

@@ -2,15 +2,14 @@
 
 CGSolver (:33-183): matrix-RHS conjugate gradient with trace-ratio step
 sizes.  CholeskyDecomposition (:185-321): the reference factorizes
-column by column over the process mesh; a per-column chain wastes the
-MXU, so the TPU-native design is a BLOCKED right-looking factorization —
-a bs-multiple panel of columns is extracted with one tall SpMM, its
-diagonal block factorized densely (one small MXU Cholesky), the
+column by column over the process mesh; a per-column chain leaves the
+device's matrix units idle, so this design is a BLOCKED right-looking
+factorization — a bs-multiple panel of columns is extracted with one tall
+SpMM, its diagonal block factorized densely (one small Cholesky), the
 subdiagonal block solved triangularly, and the trailing matrix updated
 with one threshold-filtered distributed SpGEMM per panel.  Memory is
 O(dim x panel) + the sparse operands — no N^2 materialization, so the
-factorization exists at the library's target dimension (VERDICT r4
-missing #1).
+factorization exists at the library's target dimension.
 """
 from __future__ import annotations
 
@@ -137,7 +136,7 @@ def cholesky_decomposition(amat, params: SolverParameters | None = None):
     """A = L L^H (lower-triangular L), threshold-sparsified — blocked
     right-looking sparse factorization (reference
     LinearSolversModule.F90:185-321; see module docstring for the
-    TPU-native design).  O(dim x panel) dense scratch; the trailing
+    design).  O(dim x panel) dense scratch; the trailing
     matrix stays in the threshold-filtered sparse format throughout."""
     params, _ = resolve(params)
     with solver_log(params, "Linear Solver", "Cholesky"):

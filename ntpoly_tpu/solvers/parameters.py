@@ -102,7 +102,7 @@ class Monitor:
 
 @dataclass
 class SolverParameters:
-    """reference SolverParametersModule.F90:14-113 plus TPU-specific knobs."""
+    """reference SolverParametersModule.F90:14-113 plus device knobs."""
     converge_diff: float = CONVERGENCE_DIFF_CONST
     max_iterations: int = MAX_ITERATIONS_CONST
     threshold: float = 0.0
@@ -115,7 +115,7 @@ class SolverParameters:
     # exhausts max_iterations without its monitor firing (the reference
     # logs totals and returns silently; strict callers want the raise).
     raise_on_nonconvergence: bool = False
-    # TPU-native extensions (absent in the reference): block capacity policy.
+    # Extensions absent in the reference: block capacity policy.
     k_out: Optional[int] = None          # slots per block-row for results
     row_chunk: Optional[int] = None      # SpGEMM accumulator chunking
     # Iterations fused into one compiled lax.scan between host syncs (1 =
@@ -127,20 +127,19 @@ class SolverParameters:
     # pinned capacity: 'grow' (redo chunk at the needed capacity — the
     # reference's never-drop pool growth), 'warn', 'raise', 'ignore'.
     # Truncation quality note ('truncate'/'warn'/'ignore', or 'grow'
-    # capped at the panel width): overflowing rows keep the k_out LOWEST
-    # column ids — a structural rule, cheap in-kernel — not the k_out
-    # largest-norm blocks, so a truncated solve can drop a row's
-    # numerically largest block.  Size k_out (or let 'grow' run) so
-    # truncation never fires on converged workloads.
+    # capped at the panel width): under the default 'cand' multiply,
+    # overflowing rows keep the k_out LOWEST column ids — a structural
+    # rule — not the k_out largest-norm blocks, so a truncated solve can
+    # drop a row's numerically largest block.  Size k_out (or let 'grow'
+    # run) so truncation never fires on converged workloads.
     on_overflow: str = "grow"
-    # MXU pass count for the SpGEMM kernel: 'high' (3 bf16 passes,
-    # ~2x MXU throughput, ~1e-6 relative dot error — the DEFAULT since
-    # r5: at solver level it converges in 10 iterations vs 9 for
-    # 'highest' on the trs4_10k bench with oracle error 1.4e-5, well
-    # inside the reference's 1e-4 acceptance bar, using the
-    # plateau-robust idempotency monitor that 'auto' selects for it) or
-    # 'highest' (full f32, 6 passes — exact energy-diff reference
-    # parity, opt-in for tolerance-critical work).
+    # Precision name, 'high' (default) or 'highest'.  It changes no
+    # arithmetic: every multiply tier runs float32 at FP32
+    # (lax.Precision.HIGHEST; on the GPU no TF32 and no bf16 passes).
+    # It still selects the convergence functional that
+    # convergence_metric='auto' picks: 'highest' -> 'energy',
+    # 'high' -> 'idempotency'.  'bf16' and other names raise ValueError
+    # (parallel/algebra.check_precision).
     precision: str = "high"
     # Convergence functional for the purification solvers (PM / TRS2 /
     # TRS4 / HPCP).  'energy' = successive energy differences (exact
@@ -149,8 +148,7 @@ class SolverParameters:
     # (tr(X) - tr(X^2)) / nel, monitored as a value.  The residual
     # decays quadratically and then PLATEAUS at the arithmetic floor,
     # where the windowed automatic monitor fires deterministically —
-    # energy differences instead wander in the reduced-precision noise
-    # (precision='high' cost trs4_10k 23 iterations vs 8 in r4).
+    # energy differences instead wander in the f32 noise.
     # 'auto' (default): 'energy' at precision='highest', 'idempotency'
     # otherwise.
     convergence_metric: str = "auto"
@@ -159,15 +157,10 @@ class SolverParameters:
     # absolute, so converge_diff below that is uncertifiable at the
     # 2^20-row scale without this.  The matmul stream stays f32; only
     # trace/dot feeding sigma, the monitor, and the energy pay the ~4
-    # extra VPU passes (core/bell.py comp_sum).
+    # extra elementwise passes (core/bell.py comp_sum).
     compensated_scalars: bool = False
-    # SpGEMM dispatch override (None = measured auto gates).  The main
-    # production value is 'pallas_band': compile ONLY the windowed band
-    # kernel for workloads known to stay banded — the auto dispatch's
-    # runtime cond also compiles the general fallback arm, whose chunk
-    # buffers cost ~5 GB of reserved HBM at the 2^20-row bench shape.
-    # A violated band assumption is detected (poisoned fill count ->
-    # the on_overflow machinery), never silently wrong.
+    # SpGEMM tier override: 'acc', 'cand' or 'dense'
+    # (None = the auto dispatch, parallel/algebra._pick_method).
     matmul_method: Optional[str] = None
 
     def copy(self) -> "SolverParameters":

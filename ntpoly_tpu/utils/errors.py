@@ -26,7 +26,7 @@ class IOFormatError(NTPolyError, ValueError):
 
 class ComplexSupportError(NTPolyError, TypeError):
     """Complex device arrays requested on a backend without native complex
-    arithmetic (XLA:TPU).  Use the api layer (``ntpoly_tpu.Matrix_ps``),
+    arithmetic.  Use the api layer (``ntpoly_tpu.Matrix_ps``),
     which routes complex data through the 2x2 real embedding automatically,
     or embed manually via ``ntpoly_tpu.core.cplx``."""
 

@@ -21,10 +21,13 @@ class _Logger:
         self._owns_file = False
 
     # -- lifecycle -------------------------------------------------------
-    def activate(self, file_name: str | None = None, append: bool = False):
+    def activate(self, file_name: str | IO | None = None,
+                 append: bool = False):
+        """Log to ``file_name`` (a path), to an open text stream, or to
+        stdout when None."""
         self.deactivate()
-        if file_name is None:
-            self.file = sys.stdout
+        if file_name is None or hasattr(file_name, "write"):
+            self.file = file_name or sys.stdout
             self._owns_file = False
         else:
             self.file = open(file_name, "a" if append else "w")
@@ -87,7 +90,8 @@ logger = _Logger()
 
 
 # Functional aliases mirroring the reference public names.
-def activate_logger(file_name: str | None = None, append: bool = False):
+def activate_logger(file_name: str | IO | None = None,
+                    append: bool = False):
     logger.activate(file_name, append)
 
 

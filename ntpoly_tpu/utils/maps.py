@@ -8,7 +8,7 @@ slice-round-robin work division.  Here there are three tiers:
 
   * ``map_matrix`` — the callback-parity path: host loop over triplets
     (directors are inherently per-element host code in the reference too).
-  * ``map_values`` — the TPU-native path: one fused XLA kernel applying
+  * ``map_values`` — the device path: one fused XLA kernel applying
     fn(rows, cols, vals) -> (vals, keep) over every stored element
     in-place on the block-ELL arrays, never leaving the device.
   * ``map_triplets`` — vectorized host-array path that may also move

@@ -4,8 +4,9 @@ reference Source/Fortran/PermutationModule.F90 (default / reverse / random /
 limited-random lookups) and LoadBalancerModule.F90:16-92 (permute = two
 SpGEMMs against one-entry-per-row permutation matrices).
 
-On TPU the original motivation (MPI rank skew) becomes block-occupancy
-balance across mesh shards, but the observable semantics are identical:
+On a device mesh the original motivation (MPI rank skew) becomes
+block-occupancy balance across mesh shards, but the observable semantics
+are identical:
 solvers permute once up front, iterate on the balanced matrix, and undo the
 permutation at the end.
 """

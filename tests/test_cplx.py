@@ -1,6 +1,7 @@
-"""Real 2x2 embedding of complex matrices (core/cplx.py) — the TPU path
-for complex data.  f(E(C)) = E(f(C)) for every solver built from
-multiplies and real-coefficient additions; verified here against the
+"""Real 2x2 embedding of complex matrices (core/cplx.py) — the path for
+complex data on backends without native complex.  f(E(C)) = E(f(C)) for
+every solver built from multiplies and real-coefficient additions;
+verified here against the
 native complex path (CPU supports both)."""
 import numpy as np
 import pytest
@@ -77,10 +78,10 @@ def test_solver_commutes_with_embedding(rng, grid, solver):
 
 
 # ----------------------------------------------------------------------------
-# automatic embedding through the public api (VERDICT r2 missing #3):
+# automatic embedding through the public api:
 # complex input on a backend without native complex runs through the 2x2
 # embedding with NO manual embed_triplets — forced on here via the
-# embedding-policy override so CPU exercises the TPU code path.
+# embedding-policy override so CPU exercises the embedded code path.
 # ----------------------------------------------------------------------------
 
 @pytest.fixture
@@ -262,7 +263,7 @@ def test_mixed_embedding_raises(rng, force_embed):
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 1), (1, 2, 4)])
 def test_embedded_svd(rng, tmp_path, force_embed, shape):
-    """r3 VERDICT missing #3: embedded SVD via the host complex path
+    """embedded SVD via the host complex path
     (reference SingularValueSolversModule.F90:18-70 is complex-native);
     A = L S R^H with ascending singular values, swept over grids."""
     import ntpoly_tpu as nt
@@ -297,7 +298,7 @@ def test_embedded_svd(rng, tmp_path, force_embed, shape):
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 1), (1, 2, 4)])
 def test_embedded_reduce_dimension(rng, tmp_path, force_embed, shape):
-    """r3 VERDICT missing #3: embedded ReduceDimension via the host
+    """embedded ReduceDimension via the host
     complex path (reference AnalysisModule.F90:222-279 is
     complex-native): the reduced matrix keeps the lowest eigenvalues."""
     import ntpoly_tpu as nt
@@ -328,7 +329,7 @@ def test_embedded_reduce_dimension(rng, tmp_path, force_embed, shape):
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 1), (2, 2, 2)])
 def test_embedded_iterative_eigensolver(rng, tmp_path, force_embed, shape):
-    """VERDICT r4 missing #2 CLOSED: the matrix-free LOBPCG runs on the
+    """the matrix-free LOBPCG runs on the
     2x2 real embedding (doubled multiplicities) and the complex pairs
     are reconstructed — the scalable eigen path is complex-capable, the
     role of the reference's complex-native EigenExa bridge

@@ -1,4 +1,4 @@
-"""Docs subsystem (r3 VERDICT missing #5): the API-reference generator
+"""Docs subsystem: the API-reference generator
 must run and cover the public surface (the role of the reference's
 Ford/Doxygen/Sphinx pipeline, reference Documentation/Makefile)."""
 import os

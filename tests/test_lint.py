@@ -12,6 +12,7 @@ def python_sources():
     for sub in ("ntpoly_tpu", "tests", "examples"):
         yield from (ROOT / sub).rglob("*.py")
     yield ROOT / "bench.py"
+    yield ROOT / "chip_smoke.py"
     yield ROOT / "__graft_entry__.py"
 
 

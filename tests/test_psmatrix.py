@@ -263,7 +263,7 @@ def test_measure_asymmetry_and_symmetrize(tmp_path, rng, grid):
 
 
 def test_fill_host_allocation_is_shard_local(rng):
-    """VERDICT r2 missing #1: construction must be O(nnz/P) + O(shard) per
+    """construction must be O(nnz/P) + O(shard) per
     host — the largest host-side allocation is one shard, never the
     global logical array."""
     from ntpoly_tpu.parallel import pmatrix as PM
@@ -327,3 +327,16 @@ def test_fill_banded_device_side(shape):
         # the generated capacity is the analytic band capacity
         assert m.k <= min(2 * ((hb - 1) // bs + 1 if hb else 0) + 1,
                           m.panel_nb)
+
+
+def test_native_fill_nb_bound():
+    """blockfill.cpp's packed sort key overflows int64 at nb >= 2^21 —
+    fill_blocks must refuse (callers fall back to numpy)."""
+    from ntpoly_tpu import native
+
+    if not native.available():
+        pytest.skip("native library unavailable")
+    z = np.zeros(1, np.int64)
+    with pytest.raises(ValueError, match="2\\^21"):
+        native.fill_blocks(z, z, np.zeros(1, np.float32),
+                           bs=128, nb=1 << 21, pnb=1 << 21)

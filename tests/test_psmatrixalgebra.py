@@ -188,7 +188,7 @@ def test_transpose_auto_grows_capacity(rng):
     assert rel_error(np.asarray(PM.to_dense(t)), d.T) < 1e-14
 
 
-@pytest.mark.parametrize("method", ["acc", "cand", "dense", "pallas"])
+@pytest.mark.parametrize("method", ["acc", "cand", "dense", "triton"])
 def test_matmul_methods_agree(rng, method):
     from ntpoly_tpu.parallel import algebra as alg, pmatrix as PM
     from ntpoly_tpu.parallel.grid import ProcessGrid
@@ -209,6 +209,6 @@ def test_dense_method_auto_selected(rng):
     dim, bs = 32, 4
     d = rng.random((dim, dim))                         # fully dense
     m = PM.from_dense(d, bs=bs, grid=grid)
-    assert alg._pick_method(m, m, k_out=m.panel_nb) == "dense"
+    assert alg._pick_method(m, m) == "dense"
     c = alg.matmul(m, m)
     assert rel_error(np.asarray(PM.to_dense(c)), d @ d) < 1e-13

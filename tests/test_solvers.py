@@ -476,7 +476,7 @@ def test_reduce_dimension(tmp_path, rng, isp):
 
 
 def test_raise_on_nonconvergence(tmp_path, rng, isp):
-    """VERDICT r2 missing #4: opt-in ConvergenceError at max_iterations."""
+    """opt-in ConvergenceError at max_iterations."""
     from ntpoly_tpu.utils.errors import ConvergenceError
     dim = 16
     h = rng.random((dim, dim))
@@ -493,7 +493,7 @@ def test_raise_on_nonconvergence(tmp_path, rng, isp):
 
 
 def test_iteration_trace_length_matches_total(tmp_path, rng, isp):
-    """VERDICT r2 weak #6: the converged iteration must be logged — the
+    """the converged iteration must be logged — the
     per-iteration Energy Value entries equal Total Iterations."""
     import yaml
     dim = 16
@@ -521,7 +521,7 @@ def test_iteration_trace_length_matches_total(tmp_path, rng, isp):
 
 
 def test_cholesky_scales_without_densify(rng, monkeypatch):
-    """VERDICT r4 missing #1: the Cholesky family must exist at the
+    """the Cholesky family must exist at the
     library's target dimension — no N^2 dense materialization anywhere.
     A banded SPD system is factorized with gather-to-dense forcibly
     broken, and the factor is verified by its residual NORM computed
